@@ -9,7 +9,7 @@
 //!      `FmIndex::load` and asserts `count` / sorted `locate` equal the
 //!      recorded expected outputs for every query.
 //!
-//! Passing both means the TPU framework and the reference crate agree on
+//! Passing both means this package and the reference crate agree on
 //! the on-disk format and the query semantics, in both directions.
 
 use std::fs;

@@ -11,9 +11,11 @@ Algorithms (reference: lt-fm-index / sview-memory / sview-mmap):
   engine on the CPU backend (the in-memory production path)
 - ``mmap``    np.memmap blob (page-fault on demand), zero-copy scalar
   engine straight over the blob views (the tiny-RSS disk-serving path)
-- ``device``  blob + derived caches uploaded to the TPU, batched engine
+- ``device``  blob + derived caches uploaded to the GPU, batched engine
+  (the cell fails unless JAX's backend is ``gpu``)
 
-Each cell runs in a FRESH subprocess (like each reference run) so
+Each cell runs in a FRESH subprocess (like each reference run; the parent
+never imports JAX, so one process at a time holds the card) so
 ``max_rss_kb`` (``/usr/bin/time -v`` analog via resource.getrusage) and the
 load/query split are per-cell honest.  ``total_ns`` is end-to-end inside the
 cell: blob load (+ device upload/warmup for ``device``) + query + result
@@ -106,20 +108,17 @@ def run_cell(args) -> None:
     if args.algorithm in ("device", "device-warm", "memory"):
         import jax
 
-        jax.config.update("jax_compilation_cache_dir",
-                          os.path.join(CACHE_DIR, "xla_cache"))
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+        from sview_fmindex_tpu.utils.compile_cache import use_compile_cache
+
+        use_compile_cache()
         if args.algorithm == "memory":
-            # the in-memory host path is the batched engine on the CPU
-            # backend (gather engine; the Pallas kernel would interpret)
+            # the in-memory host path is the batched engine on the CPU backend
             jax.config.update("jax_platforms", "cpu")
         else:
-            import threading
+            sys.path.insert(0, REPO)
+            from bench import device_info
 
-            warm = threading.Thread(target=lambda: jax.jit(lambda x: x + 1)(
-                np.arange(8, dtype=np.int32)).block_until_ready(), daemon=True)
-            warm.start()
+            device_info()  # raises unless the backend is a GPU
 
     from sview_fmindex_tpu import BLOCK3_U64, FmIndex
 
@@ -139,39 +138,33 @@ def run_cell(args) -> None:
 
         t_ph = time.perf_counter_ns()
         if args.algorithm.startswith("device"):
-            # same config as bench.py: minimal-transfer upload, stream +
-            # pair tables and the full SA derived on device
+            # same config as bench.py: the full SA is filled on device
             dev = fm.to_device(
                 dense_lut_entries=1 << 28, dense_host_entries=1 << 20,
                 sa_full="device", sa_fill_ratio=4,
                 derived_cache_dir=CACHE_DIR)
-            warm.join()
         else:
-            # CPU-backend in-memory path: gather engine only — skip the
-            # stream/pair device-table builds (minutes of host work that
-            # the engine would never read) and cap the dense seed table
-            # at the HOST level (the on-CPU device-extension pass costs
-            # far more than the LF steps it would save a one-shot batch);
-            # the .npz cache makes later runs read it like a blob section
-            dev = fm.to_device(stream=False, pair=False,
-                               dense_lut_entries=1 << 20,
+            # CPU-backend in-memory path: cap the dense seed table at the
+            # HOST level (the on-CPU device-extension pass costs far more
+            # than the LF steps it would save a one-shot batch); the .npz
+            # cache makes later runs read it like a blob section
+            dev = fm.to_device(dense_lut_entries=1 << 20,
                                dense_lut_cache=os.path.join(
                                    CACHE_DIR, "dense_cpu_memory.npz"),
                                derived_cache_dir=CACHE_DIR)
         phases["upload_ns"] = time.perf_counter_ns() - t_ph
         # warm the REAL batch shapes so load_ns covers runtime init +
         # upload + executable compiles (the analog of blob load)
-        use_stream = args.algorithm.startswith("device")
         t_ph = time.perf_counter_ns()
-        counts_w = np.asarray(dev.count(pats, use_stream=use_stream))
+        counts_w = np.asarray(dev.count(pats))
         cap = expand_capacity(counts_w)
-        force(dev.locate_with_counts(pats, capacity=cap, use_stream=use_stream))
+        force(dev.locate_with_counts(pats, capacity=cap))
         phases["warm_ns"] = time.perf_counter_ns() - t_ph
         load_ns = time.perf_counter_ns() - load_start
         q_start = time.perf_counter_ns()
-        counts = np.asarray(dev.count(pats, use_stream=use_stream))
+        counts = np.asarray(dev.count(pats))
         locs, pids, valid, _, dropped = dev.locate_with_counts(
-            pats, capacity=cap, use_stream=use_stream)
+            pats, capacity=cap)
         assert int(np.asarray(dropped)[0]) == 0, "capacity overflow dropped hits"
         locs, pids, valid = map(np.asarray, (locs, pids, valid))
         with open(out_path, "w") as f:
@@ -187,7 +180,7 @@ def run_cell(args) -> None:
             q_start = time.perf_counter_ns()
             for _ in range(S):
                 locs, pids, valid, _, dropped = dev.locate_with_counts(
-                    pats, capacity=cap, use_stream=use_stream)
+                    pats, capacity=cap)
                 locs, pids, valid = map(np.asarray, (locs, pids, valid))
                 with open(out_path, "w") as f:
                     order = np.argsort(pids[valid], kind="stable")
@@ -230,12 +223,13 @@ def run_cell(args) -> None:
 # ---------------------------------------------------------------------------
 
 def run_serve_grid(args) -> list:
-    import jax
+    from sview_fmindex_tpu.utils.compile_cache import use_compile_cache
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(CACHE_DIR, "xla_cache"))
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    sys.path.insert(0, REPO)
+    from bench import device_info
+
+    device_info()  # raises unless the backend is a GPU
+    use_compile_cache()
     from sview_fmindex_tpu import BLOCK3_U64, FmIndex
     from sview_fmindex_tpu.ops.locate import expand_capacity
 
@@ -347,6 +341,7 @@ def main(argv=None) -> None:
 
     rows = []
     cells = []
+    failed = []
     for count in patterns:
         for cold in colds:
             for algo in algorithms:
@@ -361,6 +356,7 @@ def main(argv=None) -> None:
                                       cwd=REPO)
                 if proc.returncode != 0:
                     log(f"[sweep] FAIL {count}/{cold}/{algo}: {proc.stderr[-500:]}")
+                    failed.append((count, cold, algo))
                     continue
                 cell = json.loads(proc.stdout.strip().splitlines()[-1])
                 load_pct = 100 * cell["load_ns"] // max(cell["total_ns"], 1)
@@ -398,6 +394,8 @@ def main(argv=None) -> None:
         with open(args.phases_out, "w") as f:
             json.dump(cells, f, indent=1)
         log(f"[sweep] wrote per-cell phase breakdowns to {args.phases_out}")
+    if failed:
+        sys.exit(f"[sweep] {len(failed)} cell(s) failed: {failed}")
 
 
 if __name__ == "__main__":

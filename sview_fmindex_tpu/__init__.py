@@ -1,13 +1,13 @@
-"""sview-fmindex-tpu: a TPU-native FM-index engine (JAX/XLA/Pallas).
+"""sview-fmindex-tpu: a batched FM-index engine in JAX/XLA.
 
 A from-scratch re-design of the capabilities of the Rust crate
 ``baku4/sview-fmindex`` (mounted read-only at /root/reference): BWT + bit-
 sliced rank blocks + k-mer lookup table + sampled suffix array, built into one
 contiguous, byte-compatible blob, queried via ``count``/``locate``.
 
-The execution model is TPU-first: queries run as batched lockstep backward
-search over device-resident packed arrays (``sview_fmindex_tpu.ops``), scaled
-over device meshes with pattern data-parallelism
+The execution model is accelerator-first: queries run as batched lockstep
+backward search over device-resident packed arrays (``sview_fmindex_tpu.ops``),
+scaled over device meshes with pattern data-parallelism
 (``sview_fmindex_tpu.parallel``).  The host classes in ``models`` implement
 the exact reference semantics and serve as the differential oracle.
 """

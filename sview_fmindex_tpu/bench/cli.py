@@ -13,8 +13,9 @@ Mirrors ``/root/reference/bench/src/main.rs:15-127``:
   (``locate/mod.rs:51-124``)
 
 Algorithms: ``memory`` (fs read + host engine), ``mmap`` (np.memmap +
-host engine), ``device`` (fs read + batched TPU engine — the TPU-native
-addition).  Blob stems keep the reference's naming so blobs interop.
+host engine), ``device`` (fs read + batched device engine — this
+package's addition).  Blob stems keep the reference's naming so blobs
+interop.
 """
 from __future__ import annotations
 

@@ -5,7 +5,7 @@ batch sharded data-parallel (``parallel/query.py``), count/locate results
 merged via the all-gather at the ``out_specs`` boundary; reports throughput
 per mesh size and efficiency vs linear scaling from 1 device.
 
-On real multi-chip hardware this measures ICI scaling; on a virtual CPU mesh
+On several cards this measures pattern-DP scaling; on a virtual CPU mesh
 (``XLA_FLAGS=--xla_force_host_platform_device_count=N``) it validates the
 sharded program end-to-end and reports the (synthetic) numbers with a
 ``virtual: true`` marker.
@@ -62,14 +62,12 @@ def run_scaling(text_len: int, pattern_count: int, pattern_len: int = 20,
     for n in mesh_sizes:
         mesh = make_mesh(n_devices=n)
         sharded = ShardedFmIndex(dev, mesh=mesh)
-        # pin ONE engine across mesh sizes: the auto heuristic would switch
-        # stream->gather as per-shard batch shrinks and corrupt the curve
-        counts = np.asarray(sharded.count(patterns, lens, use_stream=False))
+        counts = np.asarray(sharded.count(patterns, lens))
         assert (counts >= 1).all()
         reps = 3
         t0 = time.time()
         for _ in range(reps):
-            c = sharded.count(patterns, lens, use_stream=False)
+            c = sharded.count(patterns, lens)
             float(np.asarray(c).sum())  # force materialization
         qps = reps * pattern_count / (time.time() - t0)
         if base_qps is None:

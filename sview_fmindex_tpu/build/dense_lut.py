@@ -2,16 +2,17 @@
 
 The blob's k-mer table (reference ``count_array.rs:111-145``) is built from
 the text with base ``sigma+1`` digits so it can also serve short patterns.
-For the TPU engine we additionally precompute, at upload time, the backward-
-search range of EVERY length-``dk`` symbol string (``dk >= k``): a pattern of
+For the device engine we additionally precompute, at upload time, the
+backward-search range of EVERY length-``dk`` symbol string (``dk >= k``): a pattern of
 length >= dk then seeds with ONE table gather covering its last dk symbols,
 cutting the LF-step loop (2 rank gathers per step) roughly in half for the
 benchmark's 20 bp patterns.
 
 This is pure memoization of the search recursion — results are bit-identical
 to seeding with the blob table and LF-stepping (config-invariance semantics,
-``tests/config_invariance``).  Computed HOST-side with vectorized numpy
-(np.bitwise_count) so no extra TPU executable is compiled.
+``tests/config_invariance``).  The first levels are computed HOST-side with
+vectorized numpy (np.bitwise_count); deeper levels extend on device
+(:func:`extend_dense_lut_device`).
 """
 from __future__ import annotations
 
@@ -119,8 +120,8 @@ def extend_dense_lut_device(meta, fused, count_arr, sentinel, d_lo, d_hi,
     The dk+1 table's entry for string c.w (symbol c prepended to the
     length-dk string w) is one LF step with c over the dk entry of w:
     ``new[c * M + i] = C[c] + rank_c(old[i])`` — so each level costs
-    2*sigma*M batched rank queries on the chip (~13 s for dk 13 -> 14 at
-    1 Gbp) instead of a multi-minute host pass.  Entries whose source range
+    2*sigma*M batched rank queries on the device instead of a
+    multi-minute host pass.  Entries whose source range
     is empty map to an equal (lo == hi) pair, which seeds the search
     identically to the host-built table (count 0) even though the raw
     values may differ — results are bit-identical (config invariance).
@@ -133,20 +134,20 @@ def extend_dense_lut_device(meta, fused, count_arr, sentinel, d_lo, d_hi,
     sigma = meta.sigma
 
     # ONE compiled shape: symbol and C[symbol] are traced scalars, chunks
-    # are padded to a fixed size (remote compiles are expensive; a
-    # shape/static proliferation here would dominate the extension time)
+    # are padded to a fixed size on an accelerator
     @jax.jit
     def _step(fused, sentinel, ends, pre, c):
         sym = jnp.broadcast_to(c, ends.shape).astype(jnp.int32)
         return pre + rank_next(meta, fused, sentinel, ends, sym)
 
-    on_tpu = jax.default_backend() == "tpu"
+    on_accelerator = jax.default_backend() != "cpu"
     for _ in range(levels):
         M = d_lo.shape[0]
-        # TPU: ONE fixed compiled shape (padding waste on small levels is
-        # seconds; each extra remote compile is tens of seconds).  CPU
-        # (tests): shape-fit chunks — compiles are cheap, padding isn't.
-        csz = chunk if on_tpu else min(chunk, max(1 << 12, 1 << (M - 1).bit_length()))
+        # accelerator: ONE fixed compiled shape (padding waste on small
+        # levels is cheap next to one more compile).  CPU (tests):
+        # shape-fit chunks — compiles are cheap, padding isn't.
+        csz = chunk if on_accelerator else min(
+            chunk, max(1 << 12, 1 << (M - 1).bit_length()))
         n_chunks = -(-M // csz)
         pad = n_chunks * csz - M
         if pad:

@@ -1,4 +1,4 @@
-"""Static configuration for the TPU-native FM-index.
+"""Static configuration for the FM-index.
 
 The reference crate (`/root/reference/sview-fmindex`) encodes its configuration
 as Rust type parameters ``<P: Position, B: Block, E: TextEncoder>``

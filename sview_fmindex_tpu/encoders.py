@@ -9,7 +9,7 @@ Mirrors the reference's ``TextEncoder`` trait and its two implementations
 - :class:`PassThrough` — identity; the text is already symbol indices
   (``pass_through.rs:8-13``).
 
-Both are vectorized over numpy arrays, since the TPU build encodes whole texts
+Both are vectorized over numpy arrays, since the build encodes whole texts
 and pattern batches at once rather than byte-at-a-time.
 """
 from __future__ import annotations

@@ -11,7 +11,8 @@ The scalar query engine here reproduces, op for op:
 - LF-mapping with the sentinel +1 position shift (``bwm/mod.rs:197-215``),
 - the locate walk with sentinel-row short-circuit (``locate/mod.rs:14-37``).
 
-It is the differential oracle for the batched TPU engine, not the fast path.
+It is the differential oracle for the batched device engine, not the fast
+path.
 """
 from __future__ import annotations
 
@@ -145,32 +146,16 @@ class FmIndex:
     def blob(self) -> np.ndarray:
         return self._blob
 
-    def to_device(self, device=None, dense_lut_entries: int | None = 1 << 26,
-                  dense_lut_cache: str | None = None,
-                  dense_host_entries: int = 1 << 20, sa_full=None,
-                  stream: bool = True, stream_tile: int | None = None,
-                  stream_derive: bool = True, sa_fill_ratio: int = 4,
-                  pair: bool = True, ckpt_derive: "bool | str" = "auto",
-                  derived_cache_dir: str | None = None):
-        """Upload to a :class:`DeviceFmIndex` for batched TPU queries.
+    def to_device(self, device=None, **options):
+        """Upload to a :class:`DeviceFmIndex` for batched device queries.
 
-        ``sa_full``: optional full (r=1) suffix array — uint32 array, raw
-        file path, or the string ``"device"`` to reconstruct it ON DEVICE
-        from the blob's sampled SA (minimal host->device transfer; see
-        ``build/sa_fill.py``).  ``derived_cache_dir``: persist the derived
-        device tables across processes — see ``DeviceFmIndex.from_host``.
+        ``options`` are those of ``DeviceFmIndex.from_host`` (dense seed
+        table size, ``sa_full`` — a uint32 array, a raw file path, or
+        ``"device"`` to reconstruct it on device — and the cache paths).
         """
         from .device_index import DeviceFmIndex
 
-        return DeviceFmIndex.from_host(
-            self, device=device, dense_lut_entries=dense_lut_entries,
-            dense_lut_cache=dense_lut_cache,
-            dense_host_entries=dense_host_entries, sa_full=sa_full,
-            stream=stream, stream_tile=stream_tile,
-            stream_derive=stream_derive, sa_fill_ratio=sa_fill_ratio,
-            pair=pair, ckpt_derive=ckpt_derive,
-            derived_cache_dir=derived_cache_dir,
-        )
+        return DeviceFmIndex.from_host(self, device=device, **options)
 
     # ------------------------------------------------------------------
     # Query engine (scalar oracle)

@@ -10,17 +10,15 @@ row index is a multiple of the sampling ratio, with the sentinel-row
 short-circuit emitting ``offset`` (``locate/mod.rs:21-35``); a
 ``while_loop`` with done-masks handles the data-dependent trip counts.
 
-Expansion layout (measured design): slot ``p < B`` holds the FIRST
-occurrence row of pattern ``p`` (valid iff count >= 1) — a pure
-elementwise move, no gathers; slots ``B..capacity`` hold the overflow
-(2nd+ occurrences), compacted with a searchsorted over the overflow
-prefix sums.  For the common workload (most counts <= 1 — e.g. 20 bp
-patterns on a 1 Gbp text have ~1.001 mean occurrences) the overflow
-region is tiny, so the O(cap * log B) searchsorted that dominated a
-dense-packed expand at large capacity nearly vanishes: 235 ms -> ~10 ms
-at B=1M on a v5e.  Output order is unspecified (the reference also
-returns unsorted locations, ``README.md:77``); consumers key on
-``pat_ids``/``valid``.
+Expansion layout: slot ``p < B`` holds the FIRST occurrence row of
+pattern ``p`` (valid iff count >= 1) — a pure elementwise move, no
+gathers; slots ``B..capacity`` hold the overflow (2nd+ occurrences),
+compacted with a searchsorted over the overflow prefix sums.  For the
+common workload (most counts <= 1 — e.g. 20 bp patterns on a 1 Gbp text
+have ~1.001 mean occurrences) the overflow region is tiny, so the
+O(cap * log B) searchsorted of a dense-packed expand nearly vanishes.
+Output order is unspecified (the reference also returns unsorted
+locations, ``README.md:77``); consumers key on ``pat_ids``/``valid``.
 """
 from __future__ import annotations
 
@@ -105,15 +103,12 @@ def expand_ranges(lo: jax.Array, hi: jax.Array, capacity: int):
     return rows, pids, valid, dropped
 
 
-def walk_rows(meta, fused, count_arr, sa, sentinel, rows, valid,
-              stream_tbl=None, use_stream: bool = False):
+def walk_rows(meta, fused, count_arr, sa, sentinel, rows, valid):
     """Resolve BWT rows to text locations.  Returns uint32 [capacity].
 
     The LF-walk trip count is data-dependent (expected < r, tail ~geometric)
     so stragglers pay the while_loop's per-iteration overhead only as long
-    as any lane still walks.  ``use_stream`` routes the per-step
-    (rank, symbol) decode through the streaming sort-join kernel
-    (``ops.stream_join``).
+    as any lane still walks.
     """
     r = meta.sampling_ratio
 
@@ -128,16 +123,8 @@ def walk_rows(meta, fused, count_arr, sa, sentinel, rows, valid,
         pos, offset, loc, done = carry
         need = needs_step(pos, done)
         pos_q = jnp.where(need, pos, U32(0))  # masked lanes hit block 0
-        if use_stream:
-            from . import stream_join
-            from .search import take_small
-
-            rank, symidx, is_sent = stream_join.pre_rank_and_symidx_sorted(
-                meta, stream_tbl, sentinel, pos_q, T=meta.stream_tile)
-            pre = take_small(count_arr, symidx, meta.sigma + 1)
-        else:
-            rank, symidx, is_sent = pre_rank_and_symidx(meta, fused, sentinel, pos_q)
-            pre = jnp.take(count_arr, symidx)
+        rank, symidx, is_sent = pre_rank_and_symidx(meta, fused, sentinel, pos_q)
+        pre = jnp.take(count_arr, symidx)
         is_sent = is_sent & need
         hit = need & is_sent
         loc = jnp.where(hit, offset, loc)
@@ -161,8 +148,7 @@ def walk_rows(meta, fused, count_arr, sa, sentinel, rows, valid,
     return jnp.where(done, loc, sampled + offset)
 
 
-def locate_rows(meta, fused, count_arr, sa, sentinel, lo, hi, capacity: int,
-                stream_tbl=None, use_stream: bool = False):
+def locate_rows(meta, fused, count_arr, sa, sentinel, lo, hi, capacity: int):
     rows, pat_ids, valid, dropped = expand_ranges(lo, hi, capacity)
     if getattr(meta, "has_sa_full", False):
         # full (r=1) SA resident on device: one gather resolves every row,
@@ -171,6 +157,5 @@ def locate_rows(meta, fused, count_arr, sa, sentinel, lo, hi, capacity: int,
         # rows stay uint32: an int32 cast overflows for text_len in [2^31, 2^32)
         locs = jnp.where(valid, jnp.take(sa, rows), U32(0))
         return locs, pat_ids, valid, dropped
-    locs = walk_rows(meta, fused, count_arr, sa, sentinel, rows, valid,
-                     stream_tbl=stream_tbl, use_stream=use_stream)
+    locs = walk_rows(meta, fused, count_arr, sa, sentinel, rows, valid)
     return locs, pat_ids, valid, dropped

@@ -32,11 +32,11 @@ def encode_patterns(enc_table: jax.Array, patterns: jax.Array,
                     meta=None) -> jax.Array:
     """raw pattern bytes [B, L] -> symbol indices int32 [B, L].
 
-    A 256-entry table gather costs ~18 ns/byte on TPU (latency-bound), i.e.
-    tens of ms for a 100k x 20 batch.  When ``meta`` carries the table's
-    static content (``enc_pairs``: the few bytes that do NOT map to the
-    wildcard/default symbol, ``encoding_table.rs:17-24``), the encode becomes
-    a handful of VPU compare-selects instead.
+    When ``meta`` carries the table's static content (``enc_pairs``: the few
+    bytes that do NOT map to the wildcard/default symbol,
+    ``encoding_table.rs:17-24``), the encode is a handful of elementwise
+    compare-selects that fuse into the search program instead of a
+    256-entry table gather.
     """
     if meta is not None and getattr(meta, "enc_identity", False):
         return patterns.astype(jnp.int32)
@@ -141,8 +141,8 @@ def max_steps_needed(meta, lens, Lmax: int) -> int:
 
 
 def take_small(table: jax.Array, idx: jax.Array, size: int) -> jax.Array:
-    """Gather-free lookup in a tiny table (unrolled compare-select; XLA's
-    gather costs ~13-21 ns/element on TPU even for a sigma+1-entry table)."""
+    """Gather-free lookup in a tiny table (unrolled compare-select that
+    fuses with its elementwise neighbours)."""
     out = jnp.zeros_like(idx, dtype=table.dtype) + table[0] * (idx == 0)
     for s in range(1, size):
         out = jnp.where(idx == s, table[s], out)
@@ -150,20 +150,15 @@ def take_small(table: jax.Array, idx: jax.Array, size: int) -> jax.Array:
 
 
 def pos_ranges(meta, fused, kmer_tbl, dense_lo, dense_hi, count_arr, sentinel,
-               sym, lens, steps: int, stream_tbl=None, use_stream: bool = False,
-               all_dense: bool = False, fixed_len: int | None = None,
-               pair_tbl=None, pair_c2=None, pair_fix=None, pair_gtbl=None):
+               sym, lens, steps: int, all_dense: bool = False,
+               fixed_len: int | None = None):
     """Full backward search: (lo, hi) uint32 [B] for every pattern lane.
 
     ``steps`` must be >= every lane's rem_steps (see max_steps_needed).
-    ``use_stream`` routes the per-step rank queries through the streaming
-    sort-join kernel (``ops.stream_join``) instead of XLA row gathers; when
-    the 2-step pair table is resident (``meta.pair_rows``,
-    ``build/pair_table.py``) each stream pass consumes TWO pattern symbols
-    — the per-pass sort + kernel fixed costs are the mid-size-batch
-    bottleneck, so halving the pass count nearly doubles throughput there.
-    ``all_dense``/``fixed_len`` are static host-derived batch facts (see
-    ``initial_range``) that strip gathers from the seed and symbol fetches.
+    Each LF step ranks both range endpoints of every lane with one fused-row
+    gather (``ops.rank.rank_next``).  ``all_dense``/``fixed_len`` are static
+    host-derived batch facts (see ``initial_range``) that strip gathers from
+    the seed and symbol fetches.
     """
     lo, hi, rem_steps, seed_len = initial_range(
         meta, kmer_tbl, dense_lo, dense_hi, sym, lens,
@@ -172,15 +167,12 @@ def pos_ranges(meta, fused, kmer_tbl, dense_lo, dense_hi, count_arr, sentinel,
     Lmax = sym.shape[-1]
     if steps == 0:
         return lo, hi
-    B = lo.shape[0]
     static_seed = meta.dense_k if (all_dense and meta.dense_k) else None
 
     def sym_at(back):
         """Symbol ``back`` steps from the seed (back=0 is the first LF
-        symbol).  ``back`` may be a traced scalar or a per-lane array; the
-        clip keeps dead lanes in range."""
-        if (static_seed is not None and fixed_len is not None
-                and jnp.ndim(back) == 0):
+        symbol); the clip keeps dead lanes in range."""
+        if static_seed is not None and fixed_len is not None:
             # uniform-length all-dense batch: the symbol index is static
             j0 = fixed_len - static_seed - 1
             s = jax.lax.dynamic_slice_in_dim(sym, 0, max(j0 + 1, 1), axis=-1)
@@ -189,230 +181,30 @@ def pos_ranges(meta, fused, kmer_tbl, dense_lo, dense_hi, count_arr, sentinel,
         j = jnp.clip(lens - seed_len - 1 - back, 0, Lmax - 1)
         return jnp.take_along_axis(sym, j[..., None], axis=-1)[..., 0]
 
-    def single_body(t, carry, mask=None):
+    def body(t, carry):
         lo, hi = carry
         active = (t < rem_steps) & (lo < hi)
-        if mask is not None:
-            active = active & mask
         s = sym_at(t)
         # inactive lanes gather block 0 (hot row) instead of a random one
         ends = jnp.stack([lo, hi])  # [2, B]
         ends_q = jnp.where(active[None, :], ends, U32(0))
-        if use_stream:
-            from . import stream_join
+        pre = jnp.take(count_arr, s)
+        ranks = rank_next(meta, fused, sentinel, ends_q,
+                          jnp.broadcast_to(s, ends.shape))
+        return (jnp.where(active, pre + ranks[0], lo),
+                jnp.where(active, pre + ranks[1], hi))
 
-            pre = take_small(count_arr, s, meta.sigma + 1)
-            s2 = jnp.concatenate([s, s])
-            ranks = stream_join.rank_next_sorted(
-                meta, stream_tbl, sentinel, ends_q.reshape(2 * B), s2,
-                T=meta.stream_tile,
-            )
-            nlo = pre + ranks[:B]
-            nhi = pre + ranks[B:]
-        else:
-            pre = jnp.take(count_arr, s)
-            s2 = jnp.broadcast_to(s, ends.shape)
-            ranks = rank_next(meta, fused, sentinel, ends_q, s2)
-            nlo = pre + ranks[0]
-            nhi = pre + ranks[1]
-        return jnp.where(active, nlo, lo), jnp.where(active, nhi, hi)
-
-    use_pair_stream = (use_stream and pair_tbl is not None
-                       and getattr(meta, "pair_rows", 0) > 0 and steps >= 2)
-    use_pair_gather = (not use_stream and pair_gtbl is not None
-                       and getattr(meta, "pair_gather", False) and steps >= 2)
-
-    # sorted-chain fast path: stays in SORTED lane order across passes,
-    # paying ONE sort per pass plus one final unsort instead of the
-    # sort+unsort pair inside every rank_next_sorted call (the per-pass
-    # sort fixed cost dominates mid-size batches — DESIGN.md).  Applies to
-    # uniform-length batches whose per-lane step count is uniform (the
-    # serving shape: every benchmark batch), with all pair codes packed
-    # into one int32 payload word.
-    n_pairs_c = steps // 2 if use_pair_stream else 0
-    n_codes = (n_pairs_c + (steps % 2)) if use_pair_stream else 0
-    if (use_pair_stream and fixed_len is not None
-            and (all_dense or not meta.dense_k)
-            and 1 <= n_codes <= 6 and 2 * B < (1 << 25)):
-        return _ranges_chain(
-            meta, stream_tbl, pair_tbl, pair_c2, pair_fix, count_arr,
-            sentinel, lo, hi, sym, fixed_len, steps)
-
-    if not (use_pair_stream or use_pair_gather):
-        # NB: unrolling this loop was measured WORSE on TPU (bigger program,
-        # 30x slower compile, ~1.5x slower steady state) — keep the fori_loop.
-        lo, hi = jax.lax.fori_loop(0, steps, single_body, (lo, hi))
-        return lo, hi
-
-    from . import stream_join
-
-    import dataclasses as _dc
-
-    sigma = meta.sigma
-    sigma2 = sigma * sigma
-    meta2 = _dc.replace(meta, sigma=sigma2, stream_rows=meta.pair_rows)
-    # gather-layout pair meta: SBL-length blocks, 4 uint32 lanes/plane
-    meta2g = _dc.replace(
-        meta, sigma=sigma2, block_len=stream_join.SBL,
-        num_planes=stream_join._planes_for(sigma2),
-        num_lanes=stream_join.LANES)
-    j_star = pair_fix[0]
-    c_star = pair_fix[1].astype(jnp.int32)
-
-    def pair_body(t, carry):
-        lo, hi = carry
-        # a lane takes a pair step while >= 2 of its LF steps remain
-        active = (2 * t + 1 < rem_steps) & (lo < hi)
-        s2s = sym_at(2 * t)       # first consumed (rightmost)
-        s1s = sym_at(2 * t + 1)   # second consumed
-        code = s2s * sigma + s1s
-        ends = jnp.stack([lo, hi])
-        ends_q = jnp.where(active[None, :], ends, U32(0))
-        pre = take_small(pair_c2, code, sigma2)
-        if use_pair_gather:
-            c2 = jnp.broadcast_to(code, ends.shape)
-            ranks2 = rank_next(meta2g, pair_gtbl, sentinel, ends_q, c2)
-            pq2 = ends_q + (ends_q < sentinel).astype(U32)
-            corr2 = ((c2 == c_star) & (pq2 > j_star)).astype(U32)
-            ranks2 = ranks2 - corr2
-            nlo = pre + ranks2[0]
-            nhi = pre + ranks2[1]
-            return jnp.where(active, nlo, lo), jnp.where(active, nhi, hi)
-        c2 = jnp.concatenate([code, code])
-        ranks = stream_join.rank_next_sorted(
-            meta2, pair_tbl, sentinel, ends_q.reshape(2 * B), c2,
-            T=meta.stream_tile,
-        )
-        # one table entry's LF target is the sentinel row; its code is a
-        # stand-in and must not be counted (build/pair_table.py)
-        pq = ends_q.reshape(2 * B)
-        pq = pq + (pq < sentinel).astype(U32)
-        corr = ((c2 == c_star) & (pq > j_star)).astype(U32)
-        ranks = ranks - corr
-        nlo = pre + ranks[:B]
-        nhi = pre + ranks[B:]
-        return jnp.where(active, nlo, lo), jnp.where(active, nhi, hi)
-
-    lo, hi = jax.lax.fori_loop(0, steps // 2, pair_body, (lo, hi))
-    # lanes with an odd number of LF steps have exactly one left, at their
-    # final (leftmost) symbol
-    odd = (rem_steps % 2 == 1)
-    lo, hi = single_body(rem_steps - 1, (lo, hi), mask=odd)
-    return lo, hi
-
-
-def _ranges_chain(meta, stream_tbl, pair_tbl, pair_c2, pair_fix, count_arr,
-                  sentinel, lo, hi, sym, fixed_len: int, steps: int):
-    """Backward search staying in SORTED order across stream passes.
-
-    ``rank_next_sorted`` pays sort + unsort around every kernel pass; for a
-    P-pass search that is 2P sorts of 2B lanes.  This path sorts once per
-    pass and unsorts once at the end (P+1 sorts): each lane's remaining
-    pair codes ride the sorts as a packed int32 payload, so no gather back
-    to lane order is ever needed mid-chain.
-
-    Requirements (checked by the caller's gate): uniform pattern length
-    and uniform seed length (every lane takes exactly ``steps`` LF steps),
-    <= 6 total codes (the packed-payload budget), 2B < 2^25 lanes.
-
-    Correctness notes:
-    - empty ranges (lo == hi) are NOT masked: ranking both equal endpoints
-      with the same code yields equal results, so emptiness is preserved
-      without per-lane active masks (which would not survive the sort).
-    - positions are carried UNSHIFTED; the sentinel +1 shift
-      (``bwm/mod.rs:202-204``) is applied to the sort key / kernel input
-      each pass (the shift map is non-injective, so it must never be
-      carried).
-    """
-    from . import stream_join as sj
-
-    B = lo.shape[0]
-    sigma = meta.sigma
-    sigma2 = sigma * sigma
-    n_pairs = steps // 2
-    odd = steps % 2 == 1
-    seed = meta.dense_k if meta.dense_k else meta.kmer_size
-    j0 = fixed_len - seed - 1
-
-    def s_at(back: int):
-        return sym[:, j0 - back]
-
-    codes = [s_at(2 * t) * sigma + s_at(2 * t + 1) for t in range(n_pairs)]
-    if odd:
-        codes.append(s_at(steps - 1))
-
-    T = meta.stream_tile
-    C = 1024
-    RW2 = sj._layout(sigma2, T)[0]
-    n_tiles2 = meta.pair_rows // RW2
-    N = sj._pad_len(2 * B, C)
-    pad = N - 2 * B
-
-    idx2 = jnp.arange(2 * B, dtype=jnp.int32)
-    c_all = [jnp.concatenate([c, c]).astype(jnp.int32) for c in codes]
-    op1 = (idx2 << 6) | c_all[0]
-    op2 = jnp.zeros(2 * B, jnp.int32)
-    for i, c in enumerate(c_all[1:]):
-        op2 = op2 | (c << (6 * i))
-    pos = jnp.concatenate([lo, hi])
-    if pad:
-        pos = jnp.concatenate([pos, jnp.zeros(pad, U32)])
-        op1 = jnp.concatenate(
-            [op1, (jnp.arange(pad, dtype=jnp.int32) + 2 * B) << 6])
-        op2 = jnp.concatenate([op2, jnp.zeros(pad, jnp.int32)])
-
-    j_star = pair_fix[0]
-    c_star = pair_fix[1].astype(jnp.int32)
-    interp = sj._use_interpret()
-    join2 = sj._join_fn(sigma2, T, C, n_tiles2, N // C, False, interp)
-
-    def pair_pass(carry):
-        pos, op1, op2 = carry
-        key = pos + (pos < sentinel).astype(U32)
-        key_s, o1_s, o2_s = jax.lax.sort((key, op1, op2), num_keys=1)
-        ranks, _ = join2(key_s, o1_s, pair_tbl)
-        code = o1_s & 63
-        pre = take_small(pair_c2, code, sigma2)
-        corr = ((code == c_star) & (key_s > j_star)).astype(U32)
-        newpos = pre + ranks - corr
-        no1 = (o1_s & ~jnp.int32(63)) | (o2_s & 63)
-        no2 = o2_s >> 6
-        return newpos, no1, no2
-
-    if n_pairs == 1:
-        pos, op1, op2 = pair_pass((pos, op1, op2))
-    elif n_pairs > 1:
-        pos, op1, op2 = jax.lax.fori_loop(
-            0, n_pairs, lambda t, c: pair_pass(c), (pos, op1, op2))
-
-    if odd:
-        RW1 = sj._layout(sigma, T)[0]
-        n_tiles1 = meta.stream_rows // RW1
-        join1 = sj._join_fn(sigma, T, C, n_tiles1, N // C, False, interp)
-        key = pos + (pos < sentinel).astype(U32)
-        key_s, o1_s, o2_s = jax.lax.sort((key, op1, op2), num_keys=1)
-        ranks, _ = join1(key_s, o1_s, stream_tbl)
-        s = o1_s & 63
-        pre = take_small(count_arr, s, meta.sigma + 1)
-        pos, op1 = pre + ranks, o1_s
-
-    _, out = jax.lax.sort((op1 >> 6, pos), num_keys=1)
-    return out[:B], out[B : 2 * B]
+    return jax.lax.fori_loop(0, steps, body, (lo, hi))
 
 
 def count_batch(meta, fused, kmer_tbl, dense_lo, dense_hi, count_arr, sentinel,
                 enc_table, patterns, lens, steps: int,
-                stream_tbl=None, use_stream: bool = False,
-                all_dense: bool = False, fixed_len: int | None = None,
-                pair_tbl=None, pair_c2=None, pair_fix=None, pair_gtbl=None):
+                all_dense: bool = False, fixed_len: int | None = None):
     """counts uint32 [B] for raw byte patterns [B, Lmax] with lengths [B]."""
     sym = encode_patterns(enc_table, patterns, meta)
     lo, hi = pos_ranges(
         meta, fused, kmer_tbl, dense_lo, dense_hi, count_arr, sentinel,
         sym, lens.astype(jnp.int32), steps,
-        stream_tbl=stream_tbl, use_stream=use_stream,
         all_dense=all_dense, fixed_len=fixed_len,
-        pair_tbl=pair_tbl, pair_c2=pair_c2, pair_fix=pair_fix,
-        pair_gtbl=pair_gtbl,
     )
     return hi - lo

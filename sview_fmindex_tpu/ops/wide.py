@@ -1,12 +1,13 @@
-"""Wide-position (u64) device engine: texts >= 2^32 on TPU.
+"""Wide-position (u64) device engine: texts >= 2^32.
 
 The reference treats u64 a first-class ``Position``
-(``src/text_length.rs:87-129``); TPUs have no native 64-bit integer path,
-so every position-sized VALUE (rank checkpoints, suffix-array entries,
-k-mer table entries, count array, sentinel, query positions) is carried as
-a pair of uint32 lanes (hi, lo).  Crucially, block INDICES stay uint32:
-``n / block_len < 2^32`` holds up to 2^38 bp (256 Gbp), so every gather
-keeps its narrow index type and only the arithmetic widens.
+(``src/text_length.rs:87-129``).  Here every position-sized VALUE (rank
+checkpoints, suffix-array entries, k-mer table entries, count array,
+sentinel, query positions) is carried as a pair of uint32 lanes (hi, lo),
+which keeps the whole engine in 32-bit integer arithmetic without the
+process-wide ``jax_enable_x64`` switch.  Crucially, block INDICES stay
+uint32: ``n / block_len < 2^32`` holds up to 2^38 bp (256 Gbp), so every
+gather keeps its narrow index type and only the arithmetic widens.
 
 Wide device layout (``meta.wide_pos``):
 
@@ -15,15 +16,10 @@ Wide device layout (``meta.wide_pos``):
 - ``kmer_tbl``/``count_arr``/``sa``: uint32 [2, ...] (row 0 = hi),
 - ``sentinel``: uint32 [2].
 
-Engines: the wide STREAM engine serves batches whose 2B lanes fit an
-18-bit sort payload (``STREAM_WIDE_MAX_LANES``; chunk larger batches) —
-the sort key is the u32 stream-BLOCK id (valid to 2^38 bp), the in-block
-remainder rides the payload, and the kernel returns SEGMENT-LOCAL u32
-ranks lifted to 2-lane global ranks by a tiny per-segment base table
-(``stream_join.derive_stream_table_wide``).  The gather engine serves
-everything else.  Remaining restrictions (documented, validated at
-upload): dense seeds and the pair engine are off, and ``sampling_ratio``
-must be 1..2^15 (``p_divmod_const`` — any ratio, not just powers of two).
+Batches are served by the row-gather engine.  Remaining restrictions
+(documented, validated at upload): no ``sa_full`` resolve, dense seeds are
+host-built only, and ``sampling_ratio`` must be 1..2^15
+(``p_divmod_const`` — any ratio, not just powers of two).
 
 The math mirrors ``ops/rank.py`` / ``ops/search.py`` / ``ops/locate.py``
 exactly — same sentinel +1 shift (``bwm/mod.rs:202-204``), same k-mer
@@ -185,101 +181,6 @@ def pre_rank_and_symidx_wide(meta, fused, sent, ph, pl):
 
 
 # ---------------------------------------------------------------------------
-# streaming (sort-join) rank — the wide perf path
-# ---------------------------------------------------------------------------
-
-# payload<<13 budget: lane index must fit 18 bits in the int32 payload
-STREAM_WIDE_MAX_LANES = (1 << 18) - 2048
-
-
-def _wide_stream_prep(meta, sent, ph, pl):
-    """Shift + split a two-lane position for the blkkey kernel: returns
-    (gblk u32 sort key, rem u32, seg i32)."""
-    shift = p_lt(ph, pl, sent[0], sent[1]).astype(U32)
-    ph, pl = p_add_u32(ph, pl, shift)
-    gblk = (ph << U32(32 - 7)) | (pl >> U32(7))  # u32 for n < 2^38
-    rem = pl & U32(127)
-    seg = (gblk >> U32(24)).astype(jnp.int32)
-    return gblk, rem, seg
-
-
-def _seg_base_at(meta, seg_base, seg, sym):
-    """2-lane global count at a query's segment start (tiny-table gather)."""
-    idx = seg * meta.sigma + sym
-    return jnp.take(seg_base[0], idx), jnp.take(seg_base[1], idx)
-
-
-def rank_next_sorted_wide(meta, stream_tbl, seg_base, sent, ph, pl, sym):
-    """Two-lane ``get_next_rank`` via the blkkey sort-join kernel.
-
-    The sort key is the u32 stream-block id; the in-block remainder and
-    symbol ride the payload (``idx<<13 | rem<<6 | sym``), the kernel
-    returns the SEGMENT-LOCAL u32 rank, and the 2-lane segment base is
-    added back in lane order.  Bit-exact vs :func:`rank_next_wide`.
-    Requires n_lanes <= STREAM_WIDE_MAX_LANES (the 18-bit payload budget).
-    """
-    from . import stream_join as sj
-
-    n = ph.shape[0]
-    T = meta.stream_tile
-    C = 1024
-    RW = sj._layout(meta.sigma, T)[0]
-    n_tiles = meta.stream_rows // RW
-    N = sj._pad_len(n, C)
-    pad = N - n
-    gblk, rem, seg = _wide_stream_prep(meta, sent, ph, pl)
-    payload = ((jnp.arange(n, dtype=jnp.int32) << 13)
-               | (rem.astype(jnp.int32) << 6) | sym)
-    if pad:
-        gblk = jnp.concatenate(
-            [gblk, jnp.full(pad, U32(n_tiles * T - 1))])
-        payload = jnp.concatenate(
-            [payload, (jnp.arange(pad, dtype=jnp.int32) + n) << 13])
-    sp, sm = jax.lax.sort((gblk, payload), num_keys=1)
-    join = sj._join_fn(meta.sigma, T, C, n_tiles, N // C, False,
-                       sj._use_interpret(), True)
-    local, _ = join(sp, sm, stream_tbl)
-    _, local_u = jax.lax.sort((sm, local), num_keys=1)
-    local_u = local_u[:n]
-    bh, bl = _seg_base_at(meta, seg_base, seg, sym)
-    return p_add_u32(bh, bl, local_u)
-
-
-def pre_rank_and_symidx_sorted_wide(meta, stream_tbl, seg_base, sent, ph, pl):
-    """Two-lane ``get_pre_rank_and_symidx`` via the blkkey kernel: returns
-    (rank_hi, rank_lo, symidx, is_sentinel); rank/symidx are garbage where
-    is_sentinel (caller masks), matching :func:`pre_rank_and_symidx_wide`."""
-    from . import stream_join as sj
-
-    n = ph.shape[0]
-    T = meta.stream_tile
-    C = 1024
-    RW = sj._layout(meta.sigma, T)[0]
-    n_tiles = meta.stream_rows // RW
-    N = sj._pad_len(n, C)
-    pad = N - n
-    sm1h, sm1l = p_sub(sent[0], sent[1], U32(0), U32(1))
-    is_sent = (ph == sm1h) & (pl == sm1l)
-    gblk, rem, seg = _wide_stream_prep(meta, sent, ph, pl)
-    payload = ((jnp.arange(n, dtype=jnp.int32) << 13)
-               | (rem.astype(jnp.int32) << 6))
-    if pad:
-        gblk = jnp.concatenate(
-            [gblk, jnp.full(pad, U32(n_tiles * T - 1))])
-        payload = jnp.concatenate(
-            [payload, (jnp.arange(pad, dtype=jnp.int32) + n) << 13])
-    sp, sm = jax.lax.sort((gblk, payload), num_keys=1)
-    join = sj._join_fn(meta.sigma, T, C, n_tiles, N // C, True,
-                       sj._use_interpret(), True)
-    local, syms = join(sp, sm, stream_tbl)
-    _, local_u, sym_u = jax.lax.sort((sm, local, syms), num_keys=1)
-    local_u, sym_u = local_u[:n], sym_u[:n]
-    bh, bl = _seg_base_at(meta, seg_base, seg, sym_u)
-    rh, rl = p_add_u32(bh, bl, local_u)
-    return rh, rl, sym_u, is_sent
-
-
-# ---------------------------------------------------------------------------
 # backward search
 # ---------------------------------------------------------------------------
 
@@ -327,32 +228,13 @@ def initial_range_wide(meta, kmer_tbl, sym, lens, dense_lo=None,
 
 
 def pos_ranges_wide(meta, fused, kmer_tbl, count_arr, sent, sym, lens,
-                    steps: int, stream_tbl=None, seg_base=None,
-                    use_stream: bool = False, dense_lo=None, dense_hi=None,
-                    fixed_len: int | None = None):
-    """Backward search, two-lane bounds.  ``use_stream`` routes the
-    per-step rank queries through the blkkey sort-join kernel (requires
-    the wide stream table + segment bases); gather engine otherwise.
-    Uniform-length stream batches take the sorted-chain path (one sort
-    per pass, ``_wide_ranges_chain``)."""
+                    steps: int, dense_lo=None, dense_hi=None):
+    """Backward search, two-lane bounds (the row-gather engine)."""
     lo_h, lo_l, hi_h, hi_l, rem, seed_len = initial_range_wide(
         meta, kmer_tbl, sym, lens, dense_lo, dense_hi)
     Lmax = sym.shape[-1]
     if steps == 0:
         return lo_h, lo_l, hi_h, hi_l
-    B = lo_h.shape[0]
-
-    if use_stream and fixed_len is not None and steps >= 1:
-        w = max((meta.sigma - 1).bit_length(), 1)
-        seed = meta.dense_k if (meta.dense_k and dense_lo is not None
-                                and fixed_len >= meta.dense_k) \
-            else meta.kmer_size
-        # uniform seed + uniform length => every lane takes exactly
-        # ``steps`` LF steps; all codes must fit the packed payload
-        if fixed_len - seed == steps and (steps - 1) * w <= 30:
-            return _wide_ranges_chain(
-                meta, stream_tbl, seg_base, count_arr, sent,
-                lo_h, lo_l, hi_h, hi_l, sym, fixed_len, seed, steps, w)
 
     def body(t, carry):
         lo_h, lo_l, hi_h, hi_l = carry
@@ -363,16 +245,8 @@ def pos_ranges_wide(meta, fused, kmer_tbl, count_arr, sent, sym, lens,
                         jnp.where(active, hi_h, U32(0))])
         el = jnp.stack([jnp.where(active, lo_l, U32(0)),
                         jnp.where(active, hi_l, U32(0))])
-        s2 = jnp.broadcast_to(s, eh.shape)
-        if use_stream:
-            rh, rl = rank_next_sorted_wide(
-                meta, stream_tbl, seg_base, sent,
-                eh.reshape(2 * B), el.reshape(2 * B),
-                jnp.concatenate([s, s]))
-            rh = rh.reshape(2, B)
-            rl = rl.reshape(2, B)
-        else:
-            rh, rl = rank_next_wide(meta, fused, sent, eh, el, s2)
+        rh, rl = rank_next_wide(meta, fused, sent, eh, el,
+                                jnp.broadcast_to(s, eh.shape))
         pre_h = take_small(count_arr[0], s, meta.sigma + 1)
         pre_l = take_small(count_arr[1], s, meta.sigma + 1)
         nlo = p_add(pre_h, pre_l, rh[0], rl[0])
@@ -382,88 +256,6 @@ def pos_ranges_wide(meta, fused, kmer_tbl, count_arr, sent, sym, lens,
         return lo_h, lo_l, hi_h, hi_l
 
     return jax.lax.fori_loop(0, steps, body, (lo_h, lo_l, hi_h, hi_l))
-
-
-def _wide_ranges_chain(meta, stream_tbl, seg_base, count_arr, sent,
-                       lo_h, lo_l, hi_h, hi_l, sym, fixed_len: int,
-                       seed: int, steps: int, w: int):
-    """Wide backward search staying in SORTED order across stream passes
-    (the two-lane analog of ``ops.search._ranges_chain``): one sort per
-    pass + a final unsort instead of the sort+unsort pair per pass.
-
-    Positions are never carried across sorts — each pass recomputes them
-    from the kernel's segment-local rank + the 2-lane segment base, then
-    derives the next sort key (shifted u32 block id) and remainder.  The
-    per-pass symbols ride the payload: o1 = idx<<13 | rem<<6 | sym, o2
-    packs the future symbols at ``w`` bits each (w = ceil(log2 sigma), so
-    a DNA batch fits 16 steps).
-    """
-    from . import stream_join as sj
-
-    B = lo_h.shape[0]
-    sigma = meta.sigma
-    j0 = fixed_len - seed - 1
-    codes = [sym[:, j0 - t] for t in range(steps)]
-    c_all = [jnp.concatenate([c, c]).astype(jnp.int32) for c in codes]
-
-    T = meta.stream_tile
-    C = 1024
-    RW = sj._layout(sigma, T)[0]
-    n_tiles = meta.stream_rows // RW
-    N = sj._pad_len(2 * B, C)
-    pad = N - 2 * B
-    mask_w = (1 << w) - 1
-
-    ph = jnp.concatenate([lo_h, hi_h])
-    pl = jnp.concatenate([lo_l, hi_l])
-    shift = p_lt(ph, pl, sent[0], sent[1]).astype(U32)
-    ph_s, pl_s = p_add_u32(ph, pl, shift)
-    key = (ph_s << U32(25)) | (pl_s >> U32(7))
-    rem = (pl_s & U32(127)).astype(jnp.int32)
-    idx2 = jnp.arange(2 * B, dtype=jnp.int32)
-    o1 = (idx2 << 13) | (rem << 6) | c_all[0]
-    o2 = jnp.zeros(2 * B, jnp.int32)
-    for i, c in enumerate(c_all[1:]):
-        o2 = o2 | (c << (w * i))
-    if pad:
-        key = jnp.concatenate([key, jnp.full(pad, U32(n_tiles * T - 1))])
-        o1 = jnp.concatenate(
-            [o1, (jnp.arange(pad, dtype=jnp.int32) + 2 * B) << 13])
-        o2 = jnp.concatenate([o2, jnp.zeros(pad, jnp.int32)])
-
-    join = sj._join_fn(sigma, T, C, n_tiles, N // C, False,
-                       sj._use_interpret(), True)
-
-    def one_pass(carry):
-        """sort -> kernel -> new position; returns (next_key, next_o1,
-        next_o2, nh, nl) with nh/nl the UNSHIFTED new positions in the
-        pass's sorted order."""
-        key, o1, o2 = carry
-        ks, o1s, o2s = jax.lax.sort((key, o1, o2), num_keys=1)
-        local, _ = join(ks, o1s, stream_tbl)
-        symc = o1s & 63
-        seg = (ks >> U32(24)).astype(jnp.int32)
-        bh, bl = _seg_base_at(meta, seg_base, seg, symc)
-        rh, rl = p_add_u32(bh, bl, local)
-        pre_h = take_small(count_arr[0], symc, sigma + 1)
-        pre_l = take_small(count_arr[1], symc, sigma + 1)
-        nh, nl = p_add(pre_h, pre_l, rh, rl)
-        sh = p_lt(nh, nl, sent[0], sent[1]).astype(U32)
-        qh, ql = p_add_u32(nh, nl, sh)
-        nkey = (qh << U32(25)) | (ql >> U32(7))
-        nrem = (ql & U32(127)).astype(jnp.int32)
-        no1 = (o1s & ~jnp.int32(0x1FFF)) | (nrem << 6) | (o2s & mask_w)
-        no2 = o2s >> w
-        return nkey, no1, no2, nh, nl
-
-    carry = (key, o1, o2)
-    if steps > 1:
-        carry = jax.lax.fori_loop(
-            0, steps - 1, lambda t, c: one_pass(c)[:3], carry)
-    _, o1_f, _, nh, nl = one_pass(carry)
-    # final unsort by lane id; drop pads
-    _, out_h, out_l = jax.lax.sort((o1_f >> 13, nh, nl), num_keys=1)
-    return (out_h[:B], out_l[:B], out_h[B : 2 * B], out_l[B : 2 * B])
 
 
 # ---------------------------------------------------------------------------
@@ -511,11 +303,9 @@ def expand_ranges_wide(lo_h, lo_l, hi_h, hi_l, capacity: int):
     return rows_h, rows_l, pids, valid, dropped
 
 
-def walk_rows_wide(meta, fused, count_arr, sa, sent, rows_h, rows_l, valid,
-                   stream_tbl=None, seg_base=None, use_stream: bool = False):
+def walk_rows_wide(meta, fused, count_arr, sa, sent, rows_h, rows_l, valid):
     """Two-lane LF walk to a sampled row (locate/mod.rs:21-35).  Any
-    sampling ratio 1..2^15 (``p_divmod_const``); ``use_stream`` decodes
-    through the blkkey kernel instead of fused-row gathers."""
+    sampling ratio 1..2^15 (``p_divmod_const``)."""
     r = meta.sampling_ratio
 
     def needs_step(ph_, pl_, done):
@@ -530,12 +320,8 @@ def walk_rows_wide(meta, fused, count_arr, sa, sent, rows_h, rows_l, valid,
         need = needs_step(ph, pl, done)
         qh = jnp.where(need, ph, U32(0))
         ql = jnp.where(need, pl, U32(0))
-        if use_stream:
-            rh, rl, symidx, is_sent = pre_rank_and_symidx_sorted_wide(
-                meta, stream_tbl, seg_base, sent, qh, ql)
-        else:
-            rh, rl, symidx, is_sent = pre_rank_and_symidx_wide(
-                meta, fused, sent, qh, ql)
+        rh, rl, symidx, is_sent = pre_rank_and_symidx_wide(
+            meta, fused, sent, qh, ql)
         pre_h = take_small(count_arr[0], symidx, meta.sigma + 1)
         pre_l = take_small(count_arr[1], symidx, meta.sigma + 1)
         hit = need & is_sent
@@ -563,11 +349,9 @@ def walk_rows_wide(meta, fused, count_arr, sa, sent, rows_h, rows_l, valid,
 
 
 def locate_rows_wide(meta, fused, count_arr, sa, sent, lo_h, lo_l,
-                     hi_h, hi_l, capacity: int, stream_tbl=None,
-                     seg_base=None, use_stream: bool = False):
+                     hi_h, hi_l, capacity: int):
     rows_h, rows_l, pids, valid, dropped = expand_ranges_wide(
         lo_h, lo_l, hi_h, hi_l, capacity)
     lh, ll = walk_rows_wide(meta, fused, count_arr, sa, sent,
-                            rows_h, rows_l, valid, stream_tbl=stream_tbl,
-                            seg_base=seg_base, use_stream=use_stream)
+                            rows_h, rows_l, valid)
     return lh, ll, pids, valid, dropped

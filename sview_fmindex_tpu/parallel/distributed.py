@@ -1,7 +1,7 @@
 """Multi-host orchestration: process-spanning meshes over jax.distributed.
 
 The reference is single-process (SURVEY.md §2 parallelism inventory); this
-is the TPU-native scale-out path demanded by the BASELINE north star
+is the multi-host scale-out path demanded by the BASELINE north star
 (>= 80% scaling efficiency to 2 hosts): each host runs the SAME program,
 `jax.distributed.initialize` wires the processes into one runtime, the
 index is replicated per host, and pattern batches shard over the global
@@ -32,9 +32,9 @@ def initialize(coordinator: str | None = None, num_processes: int | None = None,
                process_id: int | None = None) -> None:
     """Wire this process into the multi-host runtime.
 
-    On real multi-host TPU pods the three arguments are inferred from the
-    TPU metadata and may be omitted; off-pod (CPU dryruns, ad-hoc clusters)
-    pass them or set SVIEW_COORD / SVIEW_NUM_PROCS / SVIEW_PROC_ID.
+    Pass the three arguments or set SVIEW_COORD / SVIEW_NUM_PROCS /
+    SVIEW_PROC_ID; where a cluster environment describes the processes,
+    JAX can infer them and they may be omitted.
     """
     import jax
 

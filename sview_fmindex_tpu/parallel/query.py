@@ -71,15 +71,7 @@ class ShardedFmIndex:
             lens.size > 0 and (lens == lens[0]).all()) else None
         return (all_dense, fixed_len)
 
-    def _stream(self, B: int, use_stream: bool | None) -> bool:
-        per_shard = B // self.n_devices
-        if self.index.meta.wide_pos:
-            return self.index._stream_wide(per_shard, use_stream)
-        if use_stream is None:
-            return self.index._stream(per_shard, None)
-        return use_stream and self.index.meta.stream_rows > 0
-
-    def count(self, patterns, lens, use_stream: bool | None = None):
+    def count(self, patterns, lens):
         """counts[:b]; numpy uint64 for wide (u64-position) indexes."""
         patterns, lens, b = self._pad(patterns, lens)
         if self.index.meta.wide_pos:
@@ -87,35 +79,28 @@ class ShardedFmIndex:
 
             lo_h, lo_l, hi_h, hi_l = _wide_ranges_sharded(
                 self.index, patterns, lens, self.mesh, self.axis,
-                self._steps(patterns, lens),
-                self._stream(patterns.shape[0], use_stream))
+                self._steps(patterns, lens))
             return (combine64(hi_h, hi_l) - combine64(lo_h, lo_l))[:b]
         counts = _count_sharded(
             self.index, patterns, lens, self.mesh, self.axis,
-            self._steps(patterns, lens),
-            self._stream(patterns.shape[0], use_stream),
-            self._facts(lens),
+            self._steps(patterns, lens), self._facts(lens),
         )
         return counts[:b]
 
-    def pos_ranges(self, patterns, lens, use_stream: bool | None = None):
+    def pos_ranges(self, patterns, lens):
         patterns, lens, b = self._pad(patterns, lens)
         if self.index.meta.wide_pos:
             out = _wide_ranges_sharded(
                 self.index, patterns, lens, self.mesh, self.axis,
-                self._steps(patterns, lens),
-                self._stream(patterns.shape[0], use_stream))
+                self._steps(patterns, lens))
             return tuple(x[:b] for x in out)
         lo, hi = _ranges_sharded(
             self.index, patterns, lens, self.mesh, self.axis,
-            self._steps(patterns, lens),
-            self._stream(patterns.shape[0], use_stream),
-            self._facts(lens),
+            self._steps(patterns, lens), self._facts(lens),
         )
         return lo[:b], hi[:b]
 
-    def locate(self, patterns, lens, capacity_per_shard: int | None = None,
-               use_stream: bool | None = None):
+    def locate(self, patterns, lens, capacity_per_shard: int | None = None):
         """Returns (locations, pattern_ids, valid, dropped) concatenated over
         shards; pattern_ids are GLOBAL batch indices (padding lanes excluded
         via valid); ``dropped`` uint32 [n_shards] counts per-shard overflow
@@ -129,56 +114,48 @@ class ShardedFmIndex:
         """
         patterns, lens, b = self._pad(patterns, lens)
         steps = self._steps(patterns, lens)
-        stream = self._stream(patterns.shape[0], use_stream)
+        per_shard = patterns.shape[0] // self.n_devices
         if self.index.meta.wide_pos:
             from ..ops.wide import combine64
 
             bounds = _wide_ranges_sharded(
-                self.index, patterns, lens, self.mesh, self.axis, steps,
-                stream)
+                self.index, patterns, lens, self.mesh, self.axis, steps)
             if capacity_per_shard is None:
                 lo_h, lo_l, hi_h, hi_l = map(np.asarray, bounds)
                 counts = combine64(hi_h, hi_l) - combine64(lo_h, lo_l)
                 counts[b:] = 0
-                per_shard = patterns.shape[0] // self.n_devices
                 capacity_per_shard = max(
                     locate_ops.expand_capacity(c, base=per_shard)
                     for c in counts.reshape(self.n_devices, per_shard))
-            from ..ops.wide import STREAM_WIDE_MAX_LANES
-
             lh, ll, pids, valid, dropped = _wide_resolve_sharded(
-                self.index, bounds, self.mesh, self.axis,
-                capacity_per_shard,
-                stream and capacity_per_shard < STREAM_WIDE_MAX_LANES)
+                self.index, bounds, self.mesh, self.axis, capacity_per_shard)
             valid = np.asarray(valid) & (np.asarray(pids) < b)
             return (combine64(np.asarray(lh), np.asarray(ll)),
                     np.asarray(pids), valid, np.asarray(dropped))
         lo, hi = _ranges_sharded(
-            self.index, patterns, lens, self.mesh, self.axis, steps, stream,
+            self.index, patterns, lens, self.mesh, self.axis, steps,
             self._facts(lens),
         )
         if capacity_per_shard is None:
             counts = np.asarray(hi) - np.asarray(lo)
             counts[b:] = 0  # padding lanes contribute nothing
-            per_shard = patterns.shape[0] // self.n_devices
             capacity_per_shard = max(
                 locate_ops.expand_capacity(c, base=per_shard)
                 for c in counts.reshape(self.n_devices, per_shard))
         locs, pids, valid, dropped = _walk_sharded(
-            self.index, lo, hi, self.mesh, self.axis, capacity_per_shard, stream
+            self.index, lo, hi, self.mesh, self.axis, capacity_per_shard
         )
         valid = np.asarray(valid) & (np.asarray(pids) < b)
         return np.asarray(locs), np.asarray(pids), valid, np.asarray(dropped)
 
 
 # ----------------------------------------------------------------------
-@functools.partial(jax.jit, static_argnums=(3, 4, 5, 6, 7))
-def _count_sharded(idx, patterns, lens, mesh, axis, steps, use_stream=False,
+@functools.partial(jax.jit, static_argnums=(3, 4, 5, 6))
+def _count_sharded(idx, patterns, lens, mesh, axis, steps,
                    facts=(False, None)):
     @functools.partial(
         shard_map,
         mesh=mesh,
-        check_vma=False,  # pallas_call outputs lack vma; these are pure maps
         in_specs=(P(), P(axis, None), P(axis)),
         out_specs=P(axis),
     )
@@ -186,22 +163,18 @@ def _count_sharded(idx, patterns, lens, mesh, axis, steps, use_stream=False,
         return search_ops.count_batch(
             idx.meta, idx.fused, idx.kmer_tbl, idx.dense_lo, idx.dense_hi,
             idx.count_arr, idx.sentinel, idx.enc_table, patterns, lens, steps,
-            stream_tbl=idx.stream_tbl, use_stream=use_stream,
             all_dense=facts[0], fixed_len=facts[1],
-            pair_tbl=idx.pair_tbl, pair_c2=idx.pair_c2, pair_fix=idx.pair_fix,
-            pair_gtbl=idx.pair_gtbl,
         )
 
     return run(idx, patterns, lens)
 
 
-@functools.partial(jax.jit, static_argnums=(3, 4, 5, 6, 7))
-def _ranges_sharded(idx, patterns, lens, mesh, axis, steps, use_stream=False,
+@functools.partial(jax.jit, static_argnums=(3, 4, 5, 6))
+def _ranges_sharded(idx, patterns, lens, mesh, axis, steps,
                     facts=(False, None)):
     @functools.partial(
         shard_map,
         mesh=mesh,
-        check_vma=False,  # pallas_call outputs lack vma; these are pure maps
         in_specs=(P(), P(axis, None), P(axis)),
         out_specs=(P(axis), P(axis)),
     )
@@ -210,23 +183,19 @@ def _ranges_sharded(idx, patterns, lens, mesh, axis, steps, use_stream=False,
         return search_ops.pos_ranges(
             idx.meta, idx.fused, idx.kmer_tbl, idx.dense_lo, idx.dense_hi,
             idx.count_arr, idx.sentinel, sym, lens, steps,
-            stream_tbl=idx.stream_tbl, use_stream=use_stream,
             all_dense=facts[0], fixed_len=facts[1],
-            pair_tbl=idx.pair_tbl, pair_c2=idx.pair_c2, pair_fix=idx.pair_fix,
-            pair_gtbl=idx.pair_gtbl,
         )
 
     return run(idx, patterns, lens)
 
 
-@functools.partial(jax.jit, static_argnums=(3, 4, 5, 6))
-def _walk_sharded(idx, lo, hi, mesh, axis, capacity_per_shard, use_stream=False):
+@functools.partial(jax.jit, static_argnums=(3, 4, 5))
+def _walk_sharded(idx, lo, hi, mesh, axis, capacity_per_shard):
     """Expand the (already computed) shard-local ranges and walk them."""
 
     @functools.partial(
         shard_map,
         mesh=mesh,
-        check_vma=False,  # pallas_call outputs lack vma; these are pure maps
         in_specs=(P(), P(axis), P(axis)),
         out_specs=(P(axis), P(axis), P(axis), P(axis)),
     )
@@ -234,7 +203,6 @@ def _walk_sharded(idx, lo, hi, mesh, axis, capacity_per_shard, use_stream=False)
         locs, pids, valid, dropped = locate_ops.locate_rows(
             idx.meta, idx.fused, idx.count_arr, idx.sa, idx.sentinel,
             lo, hi, capacity_per_shard,
-            stream_tbl=idx.stream_tbl, use_stream=use_stream,
         )
         # lift local pattern ids to global batch indices
         shard = jax.lax.axis_index(axis).astype(jnp.int32)
@@ -246,18 +214,16 @@ def _walk_sharded(idx, lo, hi, mesh, axis, capacity_per_shard, use_stream=False)
 
 # ----------------------------------------------------------------------
 # wide (u64-position) pattern-DP: the replicated-index shard_map shape is
-# identical; per-shard search/walk run the two-lane engines (stream or
-# gather, ops/wide.py).  ShardedFmIndex routes here when meta.wide_pos.
+# identical; per-shard search/walk run the two-lane engine (ops/wide.py).
+# ShardedFmIndex routes here when meta.wide_pos.
 
-@functools.partial(jax.jit, static_argnums=(3, 4, 5, 6))
-def _wide_ranges_sharded(idx, patterns, lens, mesh, axis, steps,
-                         use_stream=False):
+@functools.partial(jax.jit, static_argnums=(3, 4, 5))
+def _wide_ranges_sharded(idx, patterns, lens, mesh, axis, steps):
     from ..ops import wide as wide_ops
 
     @functools.partial(
         shard_map,
         mesh=mesh,
-        check_vma=False,
         in_specs=(P(), P(axis, None), P(axis)),
         out_specs=(P(axis),) * 4,
     )
@@ -265,31 +231,25 @@ def _wide_ranges_sharded(idx, patterns, lens, mesh, axis, steps,
         sym = search_ops.encode_patterns(idx.enc_table, patterns, idx.meta)
         return wide_ops.pos_ranges_wide(
             idx.meta, idx.fused, idx.kmer_tbl, idx.count_arr, idx.sentinel,
-            sym, lens, steps, stream_tbl=idx.stream_tbl,
-            seg_base=idx.seg_base, use_stream=use_stream,
-            dense_lo=idx.dense_lo, dense_hi=idx.dense_hi)
+            sym, lens, steps, dense_lo=idx.dense_lo, dense_hi=idx.dense_hi)
 
     return run(idx, patterns, lens)
 
 
-@functools.partial(jax.jit, static_argnums=(2, 3, 4, 5))
-def _wide_resolve_sharded(idx, bounds, mesh, axis, capacity_per_shard,
-                          use_stream=False):
+@functools.partial(jax.jit, static_argnums=(2, 3, 4))
+def _wide_resolve_sharded(idx, bounds, mesh, axis, capacity_per_shard):
     from ..ops import wide as wide_ops
 
     @functools.partial(
         shard_map,
         mesh=mesh,
-        check_vma=False,
         in_specs=(P(),) + (P(axis),) * 4,
         out_specs=(P(axis),) * 5,
     )
     def run(idx, lo_h, lo_l, hi_h, hi_l):
         lh, ll, pids, valid, dropped = wide_ops.locate_rows_wide(
             idx.meta, idx.fused, idx.count_arr, idx.sa, idx.sentinel,
-            lo_h, lo_l, hi_h, hi_l, capacity_per_shard,
-            stream_tbl=idx.stream_tbl, seg_base=idx.seg_base,
-            use_stream=use_stream)
+            lo_h, lo_l, hi_h, hi_l, capacity_per_shard)
         shard = jax.lax.axis_index(axis).astype(jnp.int32)
         pids = pids + shard * lo_h.shape[0]
         return lh, ll, pids, valid, dropped

@@ -1,9 +1,9 @@
 """Range-sharded index: the big tables split across devices by block range.
 
 Pattern-DP (``parallel/query.py``) replicates the whole index per device —
-the right call while it fits in HBM.  When it does NOT fit (at 1 Gbp the
-fused table + stream table + dense LUT + full SA already reach ~5.4 GB of a
-v5e's 16 GB; 4 Gbp cannot replicate), this layer shards the two
+the right call while it fits in device memory.  When it does NOT fit (at
+1 Gbp the fused table + dense LUT + full SA already take ~6.5 GB; a text
+tens of times larger cannot replicate), this layer shards the two
 text-length-proportional tables along their block/position dimension:
 
 - ``fused``   [n_blocks, W]  -> [n_blocks/D, W] per device
@@ -91,10 +91,9 @@ class RangeShardedFmIndex:
         # PER-SHARD staging: each device's table slice is built host-side
         # on demand (make_array_from_callback) straight from the blob's
         # zero-copy views — the full fused table / SA is NEVER
-        # materialized on host or on any single device (the old path
-        # routed the whole index through a single-device DeviceFmIndex
-        # then re-device_put it, which at >HBM scale would OOM a chip —
-        # the exact case this layer exists for).
+        # materialized on host or on any single device (routing the whole
+        # index through a single-device DeviceFmIndex would run that
+        # device out of memory in the exact case this layer exists for).
         from ..build.dense_lut import auto_dense_k, dense_lut
         from ..models import device_index as DI
 

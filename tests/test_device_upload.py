@@ -1,10 +1,11 @@
-"""Minimal-transfer upload paths: device-derived stream table and
-on-device sa_full reconstruction (build/sa_fill.py).
+"""Device-derived upload paths: the on-device sa_full reconstruction
+(build/sa_fill.py) and the device-derived checkpoint columns
+(ops.rank.derive_fused_device).
 
-Cold start through a slow host->device link is dominated by bytes moved;
-these paths derive the stream-join table and the full suffix array ON
-DEVICE from the (much smaller) fused table + strided sampled SA.  Both
-must be bit-identical to their host-built equivalents.
+Both derive on device what the host could also upload: the full suffix
+array from the strided sampled SA, and the fused table's checkpoint
+columns from its plane columns.  Both must be bit-identical to their
+host-built equivalents.
 """
 import os
 import tempfile
@@ -13,7 +14,6 @@ import numpy as np
 import pytest
 
 import sview_fmindex_tpu as fmx
-from sview_fmindex_tpu.ops import stream_join as sj
 
 
 def _build(text, symbols, block, r=2, k=3, sa_full_path=None):
@@ -27,24 +27,8 @@ def _build(text, symbols, block, r=2, k=3, sa_full_path=None):
                             block=block, encoder_kind="table")
 
 
-@pytest.mark.parametrize("block,n", [
-    (fmx.BLOCK3_U64, 5003),   # plane reduction: 3 blob planes -> 2 device
-    (fmx.BLOCK2_U32, 777),    # BL=32: 4 fused blocks per stream block
-    (fmx.BLOCK3_U128, 4096),  # BL=128: 1 fused block per stream block
-])
-def test_derived_stream_table_matches_host_build(block, n):
-    rng = np.random.default_rng(n)
-    text = bytes(rng.choice(np.frombuffer(b"ACGT", np.uint8), size=n))
-    fm = _build(text, [b"A", b"C", b"G", b"T"], block)
-    host = fm.to_device(stream=True, stream_derive=False, dense_lut_entries=0)
-    derived = np.asarray(sj.derive_stream_table(
-        host.meta, host.fused, n, host.meta.stream_tile))
-    np.testing.assert_array_equal(np.asarray(host.stream_tbl), derived)
-    assert sj.stream_table_rows(fm.symbol_count, n, host.meta.stream_tile) \
-        == derived.shape[0]
-
-
-@pytest.mark.parametrize("n,ratio", [(10007, 4), (4096, 2), (733, 8)])
+@pytest.mark.parametrize("n,ratio", [(10007, 4), (4096, 2), (733, 8),
+                                     (20011, 16), (1500, 1)])
 def test_sa_device_fill_matches_builder(n, ratio):
     rng = np.random.default_rng(n * 7 + ratio)
     text = bytes(rng.choice(np.frombuffer(b"ACGT", np.uint8), size=n))
@@ -116,12 +100,6 @@ def test_sa_fill_ladder_adoption_matches_builder(jump, floor):
         host.meta, host.fused, host.count_arr, host.sentinel, sa_up,
         n, R, ladder_jump=jump, ladder_floor=floor)
     np.testing.assert_array_equal(np.asarray(got), sa_true)
-    # sorted stream rounds + ladder adoption (padded widths) together
-    got_s = fill_sa_full_device(
-        host.meta, host.fused, host.count_arr, host.sentinel, sa_up,
-        n, R, stream_tbl=host.stream_tbl, use_stream=True,
-        stream_min_width=0, ladder_jump=jump, ladder_floor=floor)
-    np.testing.assert_array_equal(np.asarray(got_s), sa_true)
 
 
 @pytest.mark.parametrize("block,n", [
@@ -143,28 +121,3 @@ def test_ckpt_derive_fused_matches_host(block, n):
     derived = fm.to_device(dense_lut_entries=0, ckpt_derive=True)
     np.testing.assert_array_equal(np.asarray(host.fused),
                                   np.asarray(derived.fused))
-
-
-@pytest.mark.parametrize("n,ratio", [(10007, 4), (3001, 2)])
-def test_sa_fill_sorted_stream_rounds_match_builder(n, ratio):
-    """The sorted stream-decode push rounds (_push_rounds_sorted) must be
-    bit-exact vs the gather rounds — forced on at tiny widths via
-    stream_min_width=0 (interpret-mode kernel on CPU)."""
-    rng = np.random.default_rng(n * 13 + ratio)
-    text = bytes(rng.choice(np.frombuffer(b"ACGT", np.uint8), size=n))
-    with tempfile.TemporaryDirectory() as d:
-        p = os.path.join(d, "sa.u32")
-        fm = _build(text, [b"A", b"C", b"G", b"T"], fmx.BLOCK3_U64,
-                    sa_full_path=p)
-        sa_true = np.fromfile(p, dtype="<u4")
-    host = fm.to_device(dense_lut_entries=0)
-    from sview_fmindex_tpu.build.sa_fill import fill_sa_full_device
-    import jax.numpy as jnp
-
-    R = fm.sampling_ratio * ratio
-    sa_up = jnp.asarray(fm.suffix_array[::ratio].astype(np.uint32))
-    got = fill_sa_full_device(
-        host.meta, host.fused, host.count_arr, host.sentinel, sa_up,
-        n, R, stream_tbl=host.stream_tbl, use_stream=True,
-        stream_min_width=0)
-    np.testing.assert_array_equal(np.asarray(got), sa_true)

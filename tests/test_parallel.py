@@ -23,6 +23,8 @@ from sview_fmindex_tpu.utils.patterns import pack_patterns
 
 from oracle import gen_rand_pattern, gen_rand_symbols, gen_rand_text
 
+pytestmark = pytest.mark.usefixtures("eight_devices")
+
 
 @pytest.fixture(scope="module")
 def fm():
@@ -87,15 +89,25 @@ def test_sharding_invariance(fm):
     assert all(r == results[0] for r in results[1:])
 
 
-def test_sharded_stream_pair_engine_matches_gather(fm):
-    """Pattern-DP with the stream+pair engine forced on (the big-batch
-    serving configuration) must match the gather engine per shard."""
+def test_sharded_uniform_dense_batch_matches_host(fm):
+    """Pattern-DP over a uniform-length batch whose every lane reaches the
+    dense seed (the static all_dense + fixed_len search path) must match
+    the host oracle per lane."""
     rng = fm._test_rng
-    patterns = [gen_rand_pattern(rng, fm._test_text, 2, 10) for _ in range(32)]
+    dev = fm.to_device()
+    plen = dev.meta.dense_k + 3
+    patterns = [gen_rand_pattern(rng, fm._test_text, plen, plen)
+                for _ in range(40)]
     batch, lens = pack_patterns(patterns)
-    sharded = ShardedFmIndex(fm.to_device(), make_mesh(n_devices=4))
-    c_gather = np.asarray(sharded.count(batch, lens, use_stream=False))
-    c_stream = np.asarray(sharded.count(batch, lens, use_stream=True))
-    np.testing.assert_array_equal(c_gather, c_stream)
+    sharded = ShardedFmIndex(dev, make_mesh(n_devices=4))
+    counts = np.asarray(sharded.count(batch, lens))
     for i, p in enumerate(patterns):
-        assert int(c_stream[i]) == fm.count(p), (i, p)
+        assert int(counts[i]) == fm.count(p), (i, p)
+    locs, pids, valid, dropped = sharded.locate(batch, lens)
+    assert int(np.asarray(dropped).sum()) == 0
+    by = {i: [] for i in range(len(patterns))}
+    for l, p, v in zip(locs, pids, valid):
+        if v:
+            by[int(p)].append(int(l))
+    for i, p in enumerate(patterns):
+        assert sorted(by[i]) == sorted(fm.locate(p)), (i, p)

@@ -23,6 +23,8 @@ from sview_fmindex_tpu.utils.patterns import pack_patterns
 
 from oracle import gen_rand_pattern, gen_rand_symbols, gen_rand_text
 
+pytestmark = pytest.mark.usefixtures("eight_devices")
+
 
 def _build(tmp_path, n=3000, seed=3, r=2, k=2, sa_full=False):
     rng = random.Random(seed)

@@ -116,24 +116,24 @@ def test_p_divmod_const_matches_uint64():
                                       (v % r).astype(np.uint32)[ok], err_msg=str(r))
 
 
-def test_wide_stream_engine_matches_gather_and_oracle():
-    """The blkkey stream engine (sorted rank + segment bases) must be
-    bit-exact vs the wide gather engine and the host oracle."""
+@pytest.mark.parametrize("dense", [0, 1 << 12])
+def test_wide_uniform_batch_with_absent_lane_matches_oracle(dense):
+    """A uniform-length wide batch with an absent lane — plen 11 takes eight
+    LF steps after the blob k=3 seed and five after the dk=6 dense seed:
+    two-lane gather search, expand and walk must equal the host oracle."""
     rng = np.random.default_rng(31)
     text, fm = _build(4000, "u64", seed=31, r=2)
-    dev = DeviceFmIndex.from_host(fm, force_wide=True)
-    assert dev.meta.stream_rows > 0
-    assert dev.engine_for(64) == "wide-stream"
+    dev = DeviceFmIndex.from_host(fm, force_wide=True,
+                                  dense_host_entries=dense)
+    assert dev.meta.dense_k == (6 if dense else 0)
     plen = 11
     starts = rng.integers(0, 4000 - plen, size=80)
     pats = np.frombuffer(text, np.uint8)[starts[:, None] + np.arange(plen)].copy()
     pats[5] = np.frombuffer(b"G" * plen, np.uint8)  # likely absent
-    cs = combine64(*np.asarray(dev.count(pats, use_stream=True)))
-    cg = combine64(*np.asarray(dev.count(pats, use_stream=False)))
-    np.testing.assert_array_equal(cs, cg)
+    c = combine64(*np.asarray(dev.count(pats)))
     for i in range(80):
-        assert int(cs[i]) == fm.count(pats[i].tobytes()), i
-    locs, pids, valid, dropped = dev.locate(pats, use_stream=True)
+        assert int(c[i]) == fm.count(pats[i].tobytes()), i
+    locs, pids, valid, dropped = dev.locate(pats)
     assert int(np.asarray(dropped)[0]) == 0
     lv = combine64(np.asarray(locs)[0], np.asarray(locs)[1])
     by = {}
@@ -215,11 +215,12 @@ def test_wide_envelope_rejects_fold_overflow():
         DeviceFmIndex.from_host(_FakeLen(fm, 2 ** 38), force_wide=True)
 
 
-@pytest.mark.parametrize("stream", [True, False])
-def test_wide_pattern_dp_on_mesh(stream):
+@pytest.mark.parametrize("dense", [True, False])
+def test_wide_pattern_dp_on_mesh(dense):
     """Wide index replicated over the virtual mesh, pattern batches
-    sharded (pattern-DP): per-shard two-lane engines (stream and gather)
-    must merge to the host oracle's answers."""
+    sharded (pattern-DP): the per-shard two-lane gather engine, with and
+    without host-built dense seeds, must merge to the host oracle's
+    answers."""
     import jax
     from sview_fmindex_tpu.parallel.query import ShardedFmIndex
     from sview_fmindex_tpu.parallel.mesh import make_mesh
@@ -228,19 +229,20 @@ def test_wide_pattern_dp_on_mesh(stream):
         pytest.skip("needs a multi-device (virtual) mesh")
     rng = np.random.default_rng(41)
     text, fm = _build(3000, "u64", seed=41)
-    dev = DeviceFmIndex.from_host(fm, force_wide=True)
+    dev = DeviceFmIndex.from_host(fm, force_wide=True,
+                                  dense_host_entries=(1 << 12) if dense else 0)
+    assert bool(dev.meta.dense_k) == dense
     sharded = ShardedFmIndex(dev, make_mesh())
     plen = 10
     B = 64
     starts = rng.integers(0, 3000 - plen, size=B)
     pats = np.frombuffer(text, np.uint8)[starts[:, None] + np.arange(plen)]
     lens = np.full(B, plen, np.int32)
-    c = np.asarray(sharded.count(pats, lens, use_stream=stream))
+    c = np.asarray(sharded.count(pats, lens))
     assert c.dtype == np.uint64
     for i in range(B):
         assert int(c[i]) == fm.count(pats[i].tobytes()), i
-    locs, pids, valid, dropped = sharded.locate(pats, lens,
-                                                use_stream=stream)
+    locs, pids, valid, dropped = sharded.locate(pats, lens)
     assert int(np.asarray(dropped).sum()) == 0
     by = {}
     for l, p, v in zip(locs, pids, valid):

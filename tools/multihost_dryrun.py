@@ -6,13 +6,12 @@ row): 2 processes x 4 virtual CPU devices = one 8-device global mesh;
 device, pattern batches shard over the global ``dp`` axis, and each
 process's merged locate output must equal the single-process host oracle.
 
-Also MEASURES the one hot-path collective (the result all-gather at the
-out_specs boundary) across the real process boundary, at the comm model's
-payload sizes — the measured anchor the analytic 2-host efficiency model
-was missing (VERDICT r4 #3).
+Also times the one hot-path collective (the result all-gather at the
+out_specs boundary) across the real process boundary, at the payload
+sizes of a 1M-pattern count and locate batch.
 
-Run: ``python tools/multihost_dryrun.py`` (parent spawns the 2 children
-and writes MULTIHOST_r05.json at the repo root).
+Run: ``python tools/multihost_dryrun.py`` (the parent spawns the 2
+children and prints one JSON line; exit code 1 if any child failed).
 """
 from __future__ import annotations
 
@@ -87,14 +86,14 @@ def child(proc_id: int) -> None:
     steps = max_steps_needed(dev_local.meta, lens, patterns.shape[1])
     facts = (bool(dev_local.meta.dense_k), 12)
 
-    counts_g = _count_sharded(idx_g, pats_g, lens_g, mesh, "dp", steps, False, facts)
+    counts_g = _count_sharded(idx_g, pats_g, lens_g, mesh, "dp", steps, facts)
     counts = dist.allgather(counts_g)
 
-    lo_g, hi_g = _ranges_sharded(idx_g, pats_g, lens_g, mesh, "dp", steps, False, facts)
+    lo_g, hi_g = _ranges_sharded(idx_g, pats_g, lens_g, mesh, "dp", steps, facts)
     per_shard = B // (NUM_PROCS * DEVS_PER_PROC)
     cap = expand_capacity(counts, base=per_shard)
     locs_g, pids_g, valid_g, dropped_g = _walk_sharded(
-        idx_g, lo_g, hi_g, mesh, "dp", cap, False)
+        idx_g, lo_g, hi_g, mesh, "dp", cap)
     locs, pids, valid = map(dist.allgather, (locs_g, pids_g, valid_g))
     assert int(np.asarray(dist.allgather(dropped_g)).sum()) == 0
 
@@ -109,13 +108,12 @@ def child(proc_id: int) -> None:
         assert counts[i] == len(want), (i, counts[i], want)
         assert sorted(got.get(i, [])) == want, (i, got.get(i), want)
         n_checked += 1
-    # ---- measured inter-process collective (VERDICT r4 missing #3) ----
+    # ---- measured inter-process collective ----
     # The hot path's ONLY collective is the result all-gather at the
-    # out_specs boundary.  Time it at the comm model's payload sizes with
-    # the collective actually CROSSING the process boundary (gRPC over
-    # localhost here — not a DCN, but a real serialize+transport+merge
-    # path; the artifact records the transport so the number cannot be
-    # read as a DCN measurement).
+    # out_specs boundary.  Time it with the collective actually CROSSING
+    # the process boundary (gRPC over localhost here — a real
+    # serialize+transport+merge path; the output records the transport so
+    # the number cannot be read as a network or NVLink measurement).
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     to_repl = jax.jit(lambda x: x,
@@ -172,8 +170,6 @@ def main() -> None:
     artifact = {"ok": ok and len(results) == NUM_PROCS,
                 "elapsed_s": round(time.time() - t0, 1),
                 "procs": results}
-    with open(os.path.join(REPO, "MULTIHOST_r05.json"), "w") as f:
-        json.dump(artifact, f, indent=1)
     print(json.dumps(artifact))
     sys.exit(0 if artifact["ok"] else 1)
 

@@ -1,13 +1,10 @@
-"""Wide (u64-position) engine throughput on the real chip — WIDE_r05.
+"""Wide (u64-position) engine throughput on the GPU.
 
-The round-4 wide artifact was correctness-only (a CPU-mesh run at
-256 patterns); this measures the wide STREAM engine (blkkey kernel +
-segment bases, ``ops/wide.py``) and the wide gather engine at serving
-batch sizes on the 1 Gbp benchmark text with ``force_wide=True`` — the
-exact two-lane code path that serves >= 2^32 bp texts, on an index that
-fits one chip's HBM.
+Measures the wide gather engine (``ops/wide.py``) at a serving batch size
+on the 1 Gbp benchmark text with ``force_wide=True`` — the exact two-lane
+code path that serves >= 2^32 bp texts, on an index that fits one card.
 
-Writes WIDE_BENCH_r05.json and prints one JSON line.
+Prints one JSON line.
 Run: ``python tools/wide_bench.py`` (uses the bench_cache blob).
 """
 from __future__ import annotations
@@ -36,29 +33,26 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    cache = os.environ.get("BENCH_CACHE_DIR", os.path.join(REPO, "bench_cache"))
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(cache, "xla_cache"))
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    log(f"[wide-bench] devices: {jax.devices()}")
-
     os.environ.setdefault("BENCH_TEXT_SIZE", str(TEXT_SIZE))
     import bench
+    from sview_fmindex_tpu.utils.compile_cache import use_compile_cache
+
+    device = bench.device_info()
+    use_compile_cache()
+    log(f"[wide-bench] devices: {jax.devices()}")
 
     text = bench.get_text()
     fm, _ = bench.get_blob(text)
     from sview_fmindex_tpu.models.device_index import DeviceFmIndex
     from sview_fmindex_tpu.ops.wide import combine64
     from sview_fmindex_tpu.ops.locate import expand_capacity
-    from sview_fmindex_tpu.bench.timing import force as force_slice
+    from sview_fmindex_tpu.bench.timing import force
 
     t0 = time.time()
     dev = DeviceFmIndex.from_host(fm, force_wide=True)
     jax.block_until_ready(dev.sa)
     upload_s = round(time.time() - t0, 1)
-    log(f"[wide-bench] wide upload (stream_rows={dev.meta.stream_rows}): "
-        f"{upload_s}s")
+    log(f"[wide-bench] wide upload: {upload_s}s")
 
     rng = np.random.default_rng(SEED + 1)
     text_arr = np.frombuffer(text, np.uint8)
@@ -68,16 +62,13 @@ def main():
     lens = np.full(B, PATTERN_LEN, np.int32)
 
     out = {"text_size": TEXT_SIZE, "batch": B, "upload_s": upload_s,
-           "backend": jax.default_backend()}
+           "device": device, "engine": dev.engine_for(B)}
 
     # warm + capacity
-    counts2 = np.asarray(dev.count(patterns, lens, use_stream=True))
+    counts2 = np.asarray(dev.count(patterns, lens))
     counts = combine64(counts2[0], counts2[1])
     capacity = expand_capacity(counts)
-    locs, pids, valid, dropped = dev.locate(patterns, lens, capacity=capacity,
-                                            use_stream=True)
-    force_slice(locs)
-    assert int(np.asarray(dropped)[0]) == 0
+    force(dev.locate(patterns, lens, capacity=capacity))
 
     REPS = max(8, min(32, int(4e6 // B)))
 
@@ -85,31 +76,18 @@ def main():
         best = 0.0
         for _ in range(3):
             t0 = time.time()
-            outs = [run_one() for _ in range(REPS)]
-            for o in outs:
-                force_slice(o[0] if isinstance(o, tuple) else o)
+            force([run_one() for _ in range(REPS)])
             best = max(best, REPS * B / (time.time() - t0))
         return round(best, 1)
 
-    for engine, us in (("wide-stream", True), ("wide-gather", False)):
-        assert dev.engine_for(B, use_stream=us) == engine, (
-            engine, dev.engine_for(B, use_stream=us))
-        # warm this engine's executables
-        force_slice(dev.count(patterns, lens, use_stream=us))
-        force_slice(dev.locate(patterns, lens, capacity=capacity,
-                               use_stream=us)[0])
-        c_qps = measure(lambda: dev.count(patterns, lens, use_stream=us))
-        l_qps = measure(lambda: dev.locate(patterns, lens, capacity=capacity,
-                                           use_stream=us))
-        out[engine] = {"count_qps": c_qps, "locate_qps": l_qps}
-        log(f"[wide-bench] {engine}: count {c_qps/1e6:.3f} Mq/s, "
-            f"locate {l_qps/1e6:.3f} Mq/s")
+    out["count_qps"] = measure(lambda: dev.count(patterns, lens))
+    out["locate_qps"] = measure(
+        lambda: dev.locate(patterns, lens, capacity=capacity))
+    log(f"[wide-bench] count {out['count_qps']/1e6:.3f} Mq/s, "
+        f"locate {out['locate_qps']/1e6:.3f} Mq/s")
 
-    # parity: stream vs gather + host oracle sample + raw-text recheck
-    cg = np.asarray(dev.count(patterns, lens, use_stream=False))
-    assert (cg == counts2).all(), "wide stream/gather count parity FAILED"
-    locs, pids, valid, dropped = dev.locate(patterns, lens, capacity=capacity,
-                                            use_stream=True)
+    # correctness: host oracle sample + raw-text recheck
+    locs, pids, valid, dropped = dev.locate(patterns, lens, capacity=capacity)
     locs, pids, valid = map(np.asarray, (locs, pids, valid))
     assert int(np.asarray(dropped)[0]) == 0
     lv = combine64(locs[0], locs[1])
@@ -119,11 +97,7 @@ def main():
         assert bytes(text_arr[l:l + PATTERN_LEN]) == bytes(pats_np[p]), (l, p)
     for i in rng.integers(0, B, size=64):
         assert int(counts[i]) == fm.count(pats_np[i].tobytes()), i
-    out["parity"] = "ok (stream==gather, 200 locations re-verified, "\
-        "64 counts vs host oracle)"
-
-    with open(os.path.join(REPO, "WIDE_BENCH_r05.json"), "w") as f:
-        json.dump(out, f, indent=1)
+    out["checked"] = "200 locations vs the text, 64 counts vs the host oracle"
     print(json.dumps(out))
 
 
