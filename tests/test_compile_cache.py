@@ -41,7 +41,8 @@ def test_default_is_fixed_dir_in_checkout():
 
 @pytest.mark.parametrize("entry", [".jax_cache/", "chiprun_out/"])
 def test_run_outputs_are_gitignored(entry):
-    """The cache and the chip tool's output directory never get committed."""
+    """The compile cache and the directory of remote-run outputs never get
+    committed."""
     assert compile_cache.CACHE_DIR == os.path.join(REPO, ".jax_cache")
     with open(os.path.join(REPO, ".gitignore")) as f:
         assert entry in f.read().split()
